@@ -1,11 +1,11 @@
-// Native IO for gp_compressor_tpu: fast PCD point-cloud reader/writer.
+// Native IO for gp_compressor_jax: fast PCD point-cloud reader/writer.
 //
 // Role: the reference leans on PCL's native readers for its scan IO
 // (pcl::io::loadPCDFile, reference src/test_compress.cpp:13); this library
-// is the equivalent native data-loader for the TPU framework — large
+// is the equivalent native data-loader for this framework — large
 // binary scans parse here at memcpy speed and enter JAX as NumPy buffers.
 // Exposed through a plain C ABI consumed via ctypes
-// (gp_compressor_tpu/io/native.py); gp_compressor_tpu/io/pcd.py is the
+// (gp_compressor_jax/io/native.py); gp_compressor_jax/io/pcd.py is the
 // pure-NumPy fallback and the behavioural oracle for the tests.
 //
 // Build: native/build.sh (g++ -O3 -shared), cached as libgpio.so.
@@ -237,7 +237,7 @@ int gpio_pcd_write(const char* path, const float* xyz, const float* rgb,
 // ---------------------------------------------------------------------------
 // .pccode / .pcdict artifact codec (dictionary_representation format,
 // reference src/dictionary_representation.cpp:48-138,173-248). The Python
-// implementation in gp_compressor_tpu/io/artifact.py is the oracle; this
+// implementation in gp_compressor_jax/io/artifact.py is the oracle; this
 // native path handles bulk artifacts at memcpy speed.
 // ---------------------------------------------------------------------------
 

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import (CompressorConfig, GPConfig, PatchConfig,
+from gp_compressor_jax.config import (CompressorConfig, GPConfig, PatchConfig,
                                       rgb_gp_config)
-from gp_compressor_tpu.utils import synthetic
-from gp_compressor_tpu.workloads import compressor
+from gp_compressor_jax.utils import synthetic
+from gp_compressor_jax.workloads import compressor
 
 CFG = CompressorConfig(
     patch=PatchConfig(res=0.3, sz=10, max_patches=512, max_points_per_patch=384),
@@ -96,8 +96,8 @@ def test_compress_calibrated_improves_heldout_loglik():
     """MAP-calibrated hyperparameters must improve the held-out predictive
     log-likelihood over the reference's fixed constants (in-sample RMSE is
     NOT the criterion — calibration learns honest noise, which smooths)."""
-    from gp_compressor_tpu.models import sparse_gp
-    from gp_compressor_tpu.workloads import compressor as C
+    from gp_compressor_jax.models import sparse_gp
+    from gp_compressor_jax.workloads import compressor as C
 
     pts, cols = synthetic.room_cloud(n=9000, seed=11)
     ptsj = jnp.asarray(pts, jnp.float64)
@@ -137,7 +137,7 @@ def test_traced_hyperparameter_overrides_match_static_config():
     plumbing the one-jit calibrated pipeline rides."""
     import dataclasses
 
-    from gp_compressor_tpu.pallas_kernels import sogp_train
+    from gp_compressor_jax.pallas_kernels import sogp_train
 
     pts, cols = synthetic.room_cloud(n=6000, seed=3)
     ptsj, colsj = jnp.asarray(pts, jnp.float64), jnp.asarray(cols, jnp.float64)
@@ -160,7 +160,7 @@ def test_traced_hyperparameter_overrides_match_static_config():
     f32 = lambda t: jax.tree.map(lambda x: jnp.asarray(x, jnp.float32)
                                  if jnp.issubdtype(x.dtype, jnp.floating)
                                  else x, t)
-    from gp_compressor_tpu.models import sparse_gp
+    from gp_compressor_jax.models import sparse_gp
     cfg32 = dataclasses.replace(CFG.depth_gp, dtype=jnp.float32,
                                 s20=s20, eps_tol=eps)
     st0 = sparse_gp.init_batch(cfg32, batch.X.shape[0])
@@ -200,8 +200,8 @@ def test_fused_calibrated_roundtrip_is_one_jit_and_accurate():
 
 
 def test_smc_refine_pose_improves_offset():
-    from gp_compressor_tpu.config import MappingConfig, SMCConfig
-    from gp_compressor_tpu.workloads import mapping
+    from gp_compressor_jax.config import MappingConfig, SMCConfig
+    from gp_compressor_jax.workloads import mapping
 
     pts, cols = synthetic.room_cloud(n=6000, seed=12)
     half = len(pts) // 2
@@ -230,9 +230,9 @@ def test_calib_subsample_stratified_no_duplicates():
     stride over the compacted valid rows when the patch has more than n
     points, the plain prefix otherwise (duplicated rows would make the
     calibration Gram exactly singular). Also guards the center_out-order
-    bias fix (VERDICT r3: first-n valid rows under ordered banks were the
-    n most central points)."""
-    from gp_compressor_tpu.geometry.patches import PatchBatch
+    bias fix (first-n valid rows under ordered banks were the n most
+    central points)."""
+    from gp_compressor_jax.geometry.patches import PatchBatch
 
     B, P, n = 4, 10, 5
     mask = np.zeros((B, P), bool)

@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import (CompressorConfig, KSVDConfig, PatchConfig)
-from gp_compressor_tpu.models import dictionary
-from gp_compressor_tpu.io import artifact as artifact_io
-from gp_compressor_tpu.utils import synthetic
-from gp_compressor_tpu.workloads import ksvd_compressor
+from gp_compressor_jax.config import (CompressorConfig, KSVDConfig, PatchConfig)
+from gp_compressor_jax.models import dictionary
+from gp_compressor_jax.io import artifact as artifact_io
+from gp_compressor_jax.utils import synthetic
+from gp_compressor_jax.workloads import ksvd_compressor
 
 
 def test_omp_recovers_sparse_signals():
@@ -109,7 +109,7 @@ def test_ksvd_reduces_error_and_converges():
 
 
 def test_ksvd_blocked_atom_sweep_matches_serial_quality():
-    """atom_block > 1 (Jacobi-within-block dictionary update, the TPU
+    """atom_block > 1 (Jacobi-within-block dictionary update, the device
     latency fix) must reach the same error regime as the reference's
     serial Gauss-Seidel sweep on a recoverable sparse problem."""
     r = np.random.default_rng(9)

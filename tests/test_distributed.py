@@ -1,5 +1,5 @@
 """Multi-process distributed execution (SURVEY.md §5 communication-backend
-bullet; VERDICT r1 missing item 1).
+bullet).
 
 Spawns a REAL 2-process jax.distributed CPU cluster (4 virtual devices per
 process, gloo collectives over a localhost coordinator) and checks that a

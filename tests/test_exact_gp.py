@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.models import exact_gp
-from gp_compressor_tpu.ops.kernels import RBFParams
+from gp_compressor_jax.models import exact_gp
+from gp_compressor_jax.ops.kernels import RBFParams
 
 KP = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
 S20 = 0.1

@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import KSVDConfig
-from gp_compressor_tpu.inference import hmc
-from gp_compressor_tpu.models import dictionary
-from gp_compressor_tpu.ops import kernels
-from gp_compressor_tpu.ops.kernels import RBFParams
-from gp_compressor_tpu.utils import viz
+from gp_compressor_jax.config import KSVDConfig
+from gp_compressor_jax.inference import hmc
+from gp_compressor_jax.models import dictionary
+from gp_compressor_jax.ops import kernels
+from gp_compressor_jax.ops.kernels import RBFParams
+from gp_compressor_jax.utils import viz
 
 
 def test_mp_encode_reduces_residual():
@@ -79,7 +79,7 @@ def test_cli_gp_compress_smoke(tmp_path):
     out = os.path.join(tmp_path, "recon.pcd")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run(
-        [sys.executable, "-m", "gp_compressor_tpu.cli", "gp-compress",
+        [sys.executable, "-m", "gp_compressor_jax.cli", "gp-compress",
          "--n-points", "3000", "--res", "0.3", "--sz", "6",
          "--capacity", "16", "--max-patches", "256", "--max-ppp", "96",
          "--out", out],

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.config import HMCConfig, SMCConfig
-from gp_compressor_tpu.inference import hmc, smc, vi
-from gp_compressor_tpu.ops import kernels
-from gp_compressor_tpu.ops.kernels import RBFParams
+from gp_compressor_jax.config import HMCConfig, SMCConfig
+from gp_compressor_jax.inference import hmc, smc, vi
+from gp_compressor_jax.ops import kernels
+from gp_compressor_jax.ops.kernels import RBFParams
 
 
 def test_hmc_samples_gaussian():
@@ -109,10 +109,10 @@ def test_smc_tracks_pose():
 def test_checkpoint_roundtrip(tmp_path):
     import os
 
-    from gp_compressor_tpu.config import GPConfig
-    from gp_compressor_tpu.io import checkpoint
-    from gp_compressor_tpu.models import sparse_gp
-    from gp_compressor_tpu.ops.noise import GaussianNoise
+    from gp_compressor_jax.config import GPConfig
+    from gp_compressor_jax.io import checkpoint
+    from gp_compressor_jax.models import sparse_gp
+    from gp_compressor_jax.ops.noise import GaussianNoise
 
     cfg = GPConfig(capacity=10, slots=16, dtype=jnp.float64)
     kp = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
@@ -130,7 +130,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_nuts_samples_gaussian():
-    from gp_compressor_tpu.inference import nuts
+    from gp_compressor_jax.inference import nuts
 
     cov = jnp.asarray([[1.0, 0.7], [0.7, 2.0]])
     prec = jnp.linalg.inv(cov)

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.io import native, pcd
+from gp_compressor_jax.io import native, pcd
 
 
 def _cloud(n=500, seed=0):
@@ -64,7 +64,7 @@ def test_native_artifact_byte_identical(tmp_path):
     Python implementation (golden cross-check)."""
     if not native.available():
         pytest.skip("no native lib")
-    from gp_compressor_tpu.io import artifact as artifact_io
+    from gp_compressor_jax.io import artifact as artifact_io
 
     r = np.random.default_rng(7)
     n, sz, l = 9, 8, 64

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.ops import kernels, noise
-from gp_compressor_tpu.ops.kernels import RBFParams
+from gp_compressor_jax.ops import kernels, noise
+from gp_compressor_jax.ops.kernels import RBFParams
 
 KP = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
 

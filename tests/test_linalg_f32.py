@@ -1,6 +1,6 @@
 """ops.linalg_f32: elementwise-only Cholesky/solves used by the
 calibration posterior (the XLA Cholesky HLO's internal blocked matmuls run
-at backend-default precision — bf16 on TPU — which the near-rank-1
+at a backend-default precision below f32 — bf16, TF32 — which the near-rank-1
 reference-constant Grams cannot survive; see ops/linalg_f32.py)."""
 
 import jax
@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.ops import linalg_f32
+from gp_compressor_jax.ops import linalg_f32
 
 
 def _spd(n, seed=0, jitter=None):

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import (CompressorConfig, GPConfig,
+from gp_compressor_jax.config import (CompressorConfig, GPConfig,
                                       MappingConfig, PatchConfig,
                                       RegistrationConfig, rgb_gp_config)
-from gp_compressor_tpu.utils import synthetic
-from gp_compressor_tpu.workloads import mapping
-from gp_compressor_tpu.models import sparse_gp
+from gp_compressor_jax.utils import synthetic
+from gp_compressor_jax.workloads import mapping
+from gp_compressor_jax.models import sparse_gp
 
 CFG = CompressorConfig(
     patch=PatchConfig(res=0.3, sz=10, max_patches=512, max_points_per_patch=256),
@@ -139,7 +139,7 @@ def _hole_wall_cloud(n=6000, seed=7):
     and a back wall at x=2 seen THROUGH the hole. Every camera->back-wall
     ray crosses a front-wall patch inside the hole, so carved (free & ~W)
     cells are structurally guaranteed alongside hit cells — no vacuous
-    label-count guards needed (VERDICT r2 weak #6)."""
+    label-count guards needed."""
     r = np.random.default_rng(seed)
     nf = n * 2 // 3
     nb = n - nf
@@ -172,7 +172,7 @@ def test_occupancy_channel():
                                     jax.random.key(0))
     occ = mapping.train_occupancy(state, CFG, jax.random.key(1))
     import jax.numpy as jnp
-    from gp_compressor_tpu.geometry import patches as pm
+    from gp_compressor_jax.geometry import patches as pm
     grid_uv = pm.prediction_grid(CFG.patch, state.means.dtype)
     B = state.W.shape[0]
     p = np.asarray(mapping.predict_occupancy(
@@ -209,7 +209,7 @@ def test_carve_free_space_matches_serial_oracle():
 
     # fresh rays against the built map, claimed like map_insert does
     rpts, rcols, rvalid = _cloud(600, 12)
-    from gp_compressor_tpu.workloads import registration
+    from gp_compressor_jax.workloads import registration
     grid = state.grid(CFG.patch.res)
     rot_p = jnp.concatenate([state.rotations,
                              jnp.eye(3, dtype=jnp.float64)[None]], 0)
@@ -290,8 +290,8 @@ def test_calibrated_mapping_consistent_params():
     consistent hyperparameter set, and an identical second scan registered
     with the calibrated field must not degrade the map (the reference-
     constants field's biased optimum smeared it — r3 bench finding)."""
-    from gp_compressor_tpu.config import RegistrationConfig
-    from gp_compressor_tpu.ops.kernels import RBFParams
+    from gp_compressor_jax.config import RegistrationConfig
+    from gp_compressor_jax.ops.kernels import RBFParams
 
     state = _fresh_map()
     pts, cols, valid = _cloud(6000, 11)
@@ -327,7 +327,7 @@ def test_calibrated_mapping_consistent_params():
 
 def test_spill_bank_trains_overflow_points():
     """Claimed points beyond max_points_per_patch must train via the spill
-    bank instead of being silently dropped (VERDICT r3 weak #3): with a
+    bank instead of being silently dropped: with a
     tiny main bound the spilled-state GP must absorb evidence the
     spill-disabled state loses, and the dropped counter must go to zero."""
     import dataclasses
@@ -368,7 +368,7 @@ def test_persistent_claim_tables_incremental_matches_full():
     failed to allocate/refresh)."""
     import dataclasses
 
-    from gp_compressor_tpu.workloads import registration
+    from gp_compressor_jax.workloads import registration
 
     state = _fresh_map()
     pts, cols, valid = _cloud(5000, 0)

@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import (CompressorConfig, GPConfig,
+from gp_compressor_jax.config import (CompressorConfig, GPConfig,
                                       MappingConfig, PatchConfig,
                                       rgb_gp_config)
-from gp_compressor_tpu.geometry import voxel
-from gp_compressor_tpu.models import sparse_gp
-from gp_compressor_tpu.ops.kernels import RBFParams
-from gp_compressor_tpu.ops.noise import GaussianNoise
-from gp_compressor_tpu.utils import profiling
+from gp_compressor_jax.geometry import voxel
+from gp_compressor_jax.models import sparse_gp
+from gp_compressor_jax.ops.kernels import RBFParams
+from gp_compressor_jax.ops.noise import GaussianNoise
+from gp_compressor_jax.utils import profiling
 
 KP = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
 
@@ -66,9 +66,9 @@ def test_voxel_linearize_roundtrip():
 
 
 def test_mapstate_checkpoint_roundtrip(tmp_path):
-    from gp_compressor_tpu.io import checkpoint
-    from gp_compressor_tpu.utils import synthetic
-    from gp_compressor_tpu.workloads import mapping
+    from gp_compressor_jax.io import checkpoint
+    from gp_compressor_jax.utils import synthetic
+    from gp_compressor_jax.workloads import mapping
 
     cfg = CompressorConfig(
         patch=PatchConfig(res=0.3, sz=8, max_patches=256,
@@ -114,7 +114,7 @@ def test_phase_timer_and_metric_logger(tmp_path):
 
 
 def test_checkpoint_validates_treedef_and_shapes(tmp_path):
-    from gp_compressor_tpu.io import checkpoint
+    from gp_compressor_jax.io import checkpoint
 
     tree = {"a": jnp.arange(4.0), "b": (jnp.eye(2), jnp.zeros(3))}
     path = os.path.join(tmp_path, "t.npz")
@@ -142,8 +142,8 @@ def test_checkpoint_validates_treedef_and_shapes(tmp_path):
 def test_checkpoint_sampler_state_resume(tmp_path):
     """HMC chain state + typed PRNG key survive a checkpoint round trip and
     the resumed sampler reproduces the uninterrupted chain bit-for-bit."""
-    from gp_compressor_tpu.inference.hmc import HMCChainState
-    from gp_compressor_tpu.io import checkpoint
+    from gp_compressor_jax.inference.hmc import HMCChainState
+    from gp_compressor_jax.io import checkpoint
 
     dim = 3
     st = HMCChainState(

@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gp_compressor_tpu.config import GPConfig, MeshConfig
-from gp_compressor_tpu.models import sparse_gp
-from gp_compressor_tpu.ops.kernels import RBFParams
-from gp_compressor_tpu.ops.noise import GaussianNoise
-from gp_compressor_tpu.parallel import mesh as mesh_lib
+from gp_compressor_jax.config import GPConfig, MeshConfig
+from gp_compressor_jax.models import sparse_gp
+from gp_compressor_jax.ops.kernels import RBFParams
+from gp_compressor_jax.ops.noise import GaussianNoise
+from gp_compressor_jax.parallel import mesh as mesh_lib
 
 KP = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
 
@@ -85,8 +85,8 @@ def test_global_reduction_over_sharded_patches():
 
 def test_chain_axis_hmc_sharding():
     """HMC chains shard over the chain axis and sample independently."""
-    from gp_compressor_tpu.config import HMCConfig
-    from gp_compressor_tpu.inference import hmc
+    from gp_compressor_jax.config import HMCConfig
+    from gp_compressor_jax.inference import hmc
 
     def logpost(th):
         return -0.5 * jnp.sum(th ** 2)
@@ -108,15 +108,15 @@ def test_graft_dryrun_multichip():
 
 
 # ---------------------------------------------------------------------------
-# the REAL pipeline on the mesh (VERDICT r3 next #1): compress_decompress
+# the REAL pipeline on the mesh: compress_decompress
 # and register() — global sort/claim/segment front end included — must run
 # sharded with parity against the single-device program.
 # ---------------------------------------------------------------------------
 
-from gp_compressor_tpu.config import (CompressorConfig, PatchConfig,
+from gp_compressor_jax.config import (CompressorConfig, PatchConfig,
                                       RegistrationConfig, rgb_gp_config)
-from gp_compressor_tpu.utils import synthetic
-from gp_compressor_tpu.workloads import compressor, registration
+from gp_compressor_jax.utils import synthetic
+from gp_compressor_jax.workloads import compressor, registration
 
 PIPE_CFG = CompressorConfig(
     patch=PatchConfig(res=0.5, sz=8, max_patches=128,
@@ -178,7 +178,7 @@ def test_register_sharded_parity():
     comp = compressor.compress(pts, cols, valid, PIPE_CFG, jax.random.key(0))
 
     # small rigid perturbation of the same cloud as the scan
-    import gp_compressor_tpu.geometry.transforms as transforms
+    import gp_compressor_jax.geometry.transforms as transforms
     w = jnp.asarray([0.004, -0.003, 0.002], pts.dtype)
     t = jnp.asarray([0.008, -0.006, 0.004], pts.dtype)
     Rp = transforms.euler_xyz(w)
@@ -201,15 +201,15 @@ def test_register_sharded_parity():
 
 
 def test_bench_shape_sharding_aot():
-    """VERDICT r4 weak #4: at BENCH shapes (2048 patches, 120k points,
+    """At BENCH shapes (2048 patches, 120k points,
     bench slots/banks) the compiled sharded calibrated pipeline must keep
     the patch banks, the GP train state and the decompress output
     data-partitioned — not all-gathered — and register() must compile on
-    the mesh at the same scale. AOT compile only (~15 s on the CPU mesh);
-    per-device peak memory is recorded in benchmarks/r5_shard_aot.json."""
+    the mesh at the same scale. AOT compile only (~15 s on the CPU
+    mesh)."""
     import dataclasses
 
-    from gp_compressor_tpu.parallel.aot_check import aot_shard_report
+    from gp_compressor_jax.parallel.aot_check import aot_shard_report
 
     cfg = CompressorConfig(
         patch=PatchConfig(res=0.15, sz=20, max_patches=2048,
@@ -238,7 +238,7 @@ def test_bench_shape_sharding_aot():
 def test_pallas_train_shardmap_interpret_parity():
     """The fused Pallas kernel wrapped in shard_map over the data axis
     (interpret mode on the CPU mesh) == the single-device kernel call."""
-    from gp_compressor_tpu.geometry import patches as patches_mod
+    from gp_compressor_jax.geometry import patches as patches_mod
 
     pts, cols, valid = _small_cloud(n=3000, seed=11)
     batch = compressor.project(pts, cols, valid, PIPE_CFG)

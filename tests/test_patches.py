@@ -9,9 +9,9 @@ depth/color per patch, W mask consistency.
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import PatchConfig
-from gp_compressor_tpu.geometry import patches, rotation, voxel
-from gp_compressor_tpu.utils import synthetic
+from gp_compressor_jax.config import PatchConfig
+from gp_compressor_jax.geometry import patches, rotation, voxel
+from gp_compressor_jax.utils import synthetic
 
 
 def small_cloud(n=4000, seed=0):
@@ -174,14 +174,14 @@ def test_approx_sphere_moments_close_to_exact():
 
     # what matters downstream: reconstruction quality parity
     import jax
-    from gp_compressor_tpu.config import CompressorConfig, GPConfig, rgb_gp_config
+    from gp_compressor_jax.config import CompressorConfig, GPConfig, rgb_gp_config
     import jax.numpy as jnp
     ccfg_e = CompressorConfig(
         patch=CFG, depth_gp=GPConfig(capacity=40, slots=48, dtype=jnp.float64),
         rgb_gp=rgb_gp_config(slots=48, capacity=40, dtype=jnp.float64))
     ccfg_f = dataclasses.replace(
         ccfg_e, patch=dataclasses.replace(CFG, approx_sphere_moments=True))
-    from gp_compressor_tpu.workloads import compressor
+    from gp_compressor_jax.workloads import compressor
     ce = compressor.compress(pts, cols, valid, ccfg_e, jax.random.key(0))
     cf = compressor.compress(pts, cols, valid, ccfg_f, jax.random.key(0))
     re = float(compressor.reconstruction_rmse(ce, ccfg_e))
@@ -191,7 +191,7 @@ def test_approx_sphere_moments_close_to_exact():
 
 def test_jacobi_eigh_matches_lapack_on_ill_scaled_batches():
     """jacobi_eigh_batch vs jnp.linalg.eigh on random ill-scaled symmetric
-    4x4 batches (the docstring's validation claim — ADVICE r1)."""
+    4x4 batches (the docstring's validation claim)."""
     r = np.random.default_rng(7)
     A = r.standard_normal((64, 4, 4))
     # ill-conditioned scaling across 8 decades, like real moment matrices

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_compressor_tpu.config import (CompressorConfig, GPConfig, PatchConfig,
+from gp_compressor_jax.config import (CompressorConfig, GPConfig, PatchConfig,
                                       RegistrationConfig, rgb_gp_config)
-from gp_compressor_tpu.geometry import transforms
-from gp_compressor_tpu.utils import synthetic
-from gp_compressor_tpu.workloads import compressor, registration
+from gp_compressor_jax.geometry import transforms
+from gp_compressor_jax.utils import synthetic
+from gp_compressor_jax.workloads import compressor, registration
 
 CFG = CompressorConfig(
     patch=PatchConfig(res=0.3, sz=10, max_patches=512, max_points_per_patch=256),
@@ -88,8 +88,8 @@ def test_bank_step_matches_compute_transformation():
     """At a re-claim step the banked-loop gradient (register's inner body)
     must reproduce compute_transformation exactly: the bank's re-applied
     sphere + frame-clip tests are the claim's own acceptance tests."""
-    from gp_compressor_tpu.geometry import voxel
-    from gp_compressor_tpu.workloads.compressor import default_params
+    from gp_compressor_jax.geometry import voxel
+    from gp_compressor_jax.workloads.compressor import default_params
 
     (mpts, mcols), (spts_np, scols_np) = _map_and_scan()
     valid_m = jnp.ones(mpts.shape[0], bool)
@@ -128,7 +128,7 @@ def test_bank_step_matches_compute_transformation():
 
 
 def test_full_trajectory_cadence4_matches_cadence1():
-    """VERDICT r1 weak item 7: the reclaim_every=4 default must converge
+    """The reclaim_every=4 default must converge
     like the reference's every-step re-binning (cadence 1) over a FULL
     registration trajectory, not just match at a re-claim step. Uses the
     test_registration_recovers_small_transform setup — a config where the
@@ -170,7 +170,7 @@ def test_table_claims_match_fallback_27_pass():
     """The octant-reduced ClaimTables path must claim identically to the
     table-less 27-offset fallback, including points outside the map box
     (keyed by their grid-clamped voxel)."""
-    from gp_compressor_tpu.models import sparse_gp
+    from gp_compressor_jax.models import sparse_gp
 
     (mp, mc), (sp, sc) = _map_and_scan()
     comp = compressor.compress(mp, mc, jnp.ones(mp.shape[0], bool), CFG,
@@ -200,7 +200,7 @@ def test_closed_form_density_grads_match_autodiff():
     src/sparse_gp.hpp:478-508) must match the autodiff of the predictive
     density for both the depth GP and the RGB field GP on trained states,
     including empty patches and the variance-floor clamp branch."""
-    from gp_compressor_tpu.workloads.compressor import default_params
+    from gp_compressor_jax.workloads.compressor import default_params
 
     (mp, mc), _ = _map_and_scan()
     comp = compressor.compress(mp, mc, jnp.ones(mp.shape[0], bool), CFG,
@@ -261,7 +261,7 @@ def test_icp_baseline_recovers_transform():
     least as well as halving the initial error — anchoring the gp-accuracy
     numbers with a non-GP method (the reference's NDT role,
     ndt/test_ndt_accuracy.cpp:91-188)."""
-    from gp_compressor_tpu.workloads import icp
+    from gp_compressor_jax.workloads import icp
 
     (mpts, mcols), (spts_np, scols_np) = _map_and_scan()
     comp = compressor.compress(mpts, mcols, jnp.ones(mpts.shape[0], bool),

@@ -1,6 +1,6 @@
 """Sparse-GP parity tests.
 
-The padded/masked TPU state (models.sparse_gp) must track the serial
+The padded/masked device state (models.sparse_gp) must track the serial
 float64 oracle (models.oracle, an independent re-derivation of
 src/sparse_gp.hpp:90-295) update-for-update, including full/sparse branch
 selection, capacity deletion and downdates; and must approximate the exact
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.config import GPConfig
-from gp_compressor_tpu.models import exact_gp, sparse_gp
-from gp_compressor_tpu.models.oracle import SerialSOGP
-from gp_compressor_tpu.ops.kernels import RBFParams
-from gp_compressor_tpu.ops.noise import GaussianNoise
+from gp_compressor_jax.config import GPConfig
+from gp_compressor_jax.models import exact_gp, sparse_gp
+from gp_compressor_jax.models.oracle import SerialSOGP
+from gp_compressor_jax.ops.kernels import RBFParams
+from gp_compressor_jax.ops.noise import GaussianNoise
 
 KP = RBFParams(sigmaf_sq=jnp.asarray(100.0), l_sq=jnp.asarray(1.0))
 
@@ -295,9 +295,9 @@ def test_per_point_eps_tol_forces_and_blocks():
     import jax
     import jax.numpy as jnp
 
-    from gp_compressor_tpu.config import GPConfig
-    from gp_compressor_tpu.ops.kernels import RBFParams
-    from gp_compressor_tpu.ops.noise import GaussianNoise
+    from gp_compressor_jax.config import GPConfig
+    from gp_compressor_jax.ops.kernels import RBFParams
+    from gp_compressor_jax.ops.noise import GaussianNoise
 
     cfg = GPConfig(capacity=10, slots=16, dtype=jnp.float64)
     kp = RBFParams(sigmaf_sq=jnp.asarray(1.0), l_sq=jnp.asarray(0.01))

@@ -1,6 +1,6 @@
 """Real-dataset eval path: TUM ground-truth parsing, timestamp alignment,
 voxel prefilter, and the gp-accuracy / gp-mapping CLI running end-to-end on
-a TUM-format directory (generated fixture — VERDICT r1 missing item 5)."""
+a TUM-format directory (generated fixture)."""
 
 import json
 import os
@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from gp_compressor_tpu.io import tum
+from gp_compressor_jax.io import tum
 
 
 def test_read_ground_truth_and_alignment(tmp_path):
@@ -60,13 +60,13 @@ def test_fixture_roundtrip_and_gt_consistency(tmp_path):
     assert len(files) == 3
     times, pos, quat = tum.read_ground_truth(
         os.path.join(d, "groundtruth.txt"))
-    from gp_compressor_tpu.io import native
+    from gp_compressor_jax.io import native
     p1, _ = native.read_pcd(files[0])
     p2, _ = native.read_pcd(files[1])
     q_gt, t_gt = tum.ground_truth_delta(
         times, pos, quat, tum.timestamp_from_filename(files[0]),
         tum.timestamp_from_filename(files[1]))
-    from gp_compressor_tpu.geometry import rotation as rot_mod
+    from gp_compressor_jax.geometry import rotation as rot_mod
     R_gt = np.asarray(rot_mod.quaternion_to_matrix(np.asarray(q_gt)))
     aligned = p2 @ R_gt.T + t_gt
     # same underlying world points + per-frame noise (2 x 0.002 sd)
@@ -76,7 +76,7 @@ def test_fixture_roundtrip_and_gt_consistency(tmp_path):
 
 def test_cli_gp_accuracy_on_tum_fixture(tmp_path, capsys):
     d, _ = tum.make_fixture(str(tmp_path), n_frames=3, n_points=6000)
-    from gp_compressor_tpu import cli
+    from gp_compressor_jax import cli
     cli.main(["gp-accuracy", "--dataset", d, "--res", "0.4", "--sz", "8",
               "--capacity", "15", "--max-patches", "256", "--max-ppp", "128",
               "--eps-tol", "2.0", "--frame-stride", "1", "--n-pairs", "2",
@@ -96,7 +96,7 @@ def test_cli_gp_accuracy_on_tum_fixture(tmp_path, capsys):
 def test_cli_gp_mapping_on_tum_fixture(tmp_path, capsys):
     d, _ = tum.make_fixture(str(tmp_path), n_frames=3, n_points=5000)
     out_pcd = os.path.join(tmp_path, "map.pcd")
-    from gp_compressor_tpu import cli
+    from gp_compressor_jax import cli
     cli.main(["gp-mapping", "--dataset", d, "--res", "0.4", "--sz", "8",
               "--capacity", "15", "--max-patches", "512", "--max-ppp", "128",
               "--eps-tol", "2.0", "--step", "0.01", "--max-steps", "30",
